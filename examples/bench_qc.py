@@ -1,8 +1,7 @@
-"""QC roll decoder vs generic gather decoder, same codes, one chip.
+"""QC roll decoder vs generic gather decoder, same codes, one GPU.
 
 The motivating case is huge n, where the generic decoder is
-gather-locality-bound (throughput_vs_n.json: 0.15 Ginfobit/s at
-n=1e6 x 48 words) and relabeling provably can't help.  The QC decoder
+gather-locality-bound and relabeling provably can't help.  The QC decoder
 replaces every gather with a static-shift roll (stream traffic), so its
 throughput should be set by bandwidth, not index locality.
 
@@ -10,7 +9,7 @@ Decode-only timing on fixed inputs (the headline convention), 50-iter
 budget, eps=0.42, identical erased planes for both decoders (the QC
 code IS the code the generic decoder runs, via expand()).
 
-Run (TPU): python examples/bench_qc.py
+Run (GPU): python examples/bench_qc.py
 """
 
 import os
@@ -26,9 +25,6 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    t0 = time.time()
-    np.asarray(jnp.zeros(1))
-    print(f"warmup {time.time() - t0:.0f}s", flush=True)
 
     from iib_project_ldpc_codes_tpu.models.qc import sample_qc_code
     from iib_project_ldpc_codes_tpu.ops.channels import bec_packed_channel
@@ -67,8 +63,8 @@ def main():
             qc, erased, iters).error_totals)
         b = np.asarray(bp_decode_packed_allzero(
             code, erased, iters).error_totals)
-        assert (a == b).all(), "bit-exactness violated on chip"
-        print("  trajectories bit-identical on chip", flush=True)
+        assert (a == b).all(), "bit-exactness violated on the device"
+        print("  trajectories bit-identical on the device", flush=True)
     print("DONE", flush=True)
 
 

@@ -3,7 +3,7 @@
 Compiles /root/reference/message_passing.c (when the checkout is present)
 and times it on the exact bench.py configuration -- (3,6)-regular,
 n = 10^4, 50 BP iterations, BEC eps = 0.42 -- for a like-for-like
-"reference info bits/s per CPU core" number to put next to the TPU
+"reference info bits/s per CPU core" number to put next to the GPU
 throughput.  The C decoder keeps its own early-exit/stall shortcuts
 (message_passing.c:16-19, :76-78), so this is its best case.
 

@@ -1,4 +1,4 @@
-"""Headline-kernel throughput vs block length n (decode-only, one chip).
+"""Headline-kernel throughput vs block length n (decode-only, one GPU).
 
 Is the packed BEC BP kernel's bandwidth-bound throughput flat in n?
 Per decoded bit the kernel moves a constant number of bytes (6 check
@@ -14,7 +14,7 @@ headline's n*W product (768 words) -- so every point decodes the same
 (the bench.py headline's exact convention).  Persists to
 docs/data/throughput_vs_n.json (resumable).
 
-Run (TPU, background): python examples/bench_scaling_n.py
+Run (GPU, background): python examples/bench_scaling_n.py
 """
 
 import json
@@ -33,9 +33,6 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    t0 = time.time()
-    np.asarray(jnp.zeros(1))
-    print(f"warmup {time.time() - t0:.0f}s", flush=True)
 
     from iib_project_ldpc_codes_tpu.models import sample_code
     from iib_project_ldpc_codes_tpu.ops.channels import bec_packed_channel

@@ -2,7 +2,7 @@
 
 Reproduces docs/figures/{irregular_vs_regular_n8192.png,
 waterfall_scaling_n1e5_1e6.png} from the tables recorded in
-docs/VALIDATION.md (measured on one v5e chip by
+docs/VALIDATION.md (measured on one device by
 examples/validate_round3.py).  Matplotlib-only, repo figure style:
 one axis, fixed series colors, dashed theory overlays, log-scale BER.
 """
@@ -43,7 +43,7 @@ def irregular_vs_regular():
     ax.set_xlabel("erasure probability ε")
     ax.set_ylabel("bit error rate")
     ax.set_title("Irregular vs regular at rate 1/2, n = 8192\n"
-                 "(4096 trials/point, one v5e chip)")
+                 "(4096 trials/point, one device)")
     ax.legend(fontsize=8)
     ax.grid(alpha=0.3)
     fig.tight_layout()
@@ -68,7 +68,7 @@ def waterfall_scaling():
     ax.set_ylabel("block (frame) error rate")
     ax.set_title("FER vs the finite-length scaling law "
                  "Φ(−√n(ε*−βn^(-2/3)−ε)/α)\n"
-                 "edge-sharded Monte Carlo, one v5e chip")
+                 "edge-sharded Monte Carlo, one device")
     ax.legend(fontsize=8)
     ax.grid(alpha=0.3)
     fig.tight_layout()
@@ -98,7 +98,7 @@ def design_ladder():
     ax.set_xlabel("erasure probability ε")
     ax.set_ylabel("bit error rate")
     ax.set_title("LP-designed ensemble ladder at rate 1/2, ρ=x⁵\n"
-                 "n = 8192, 2048 trials/point, one v5e chip")
+                 "n = 8192, 2048 trials/point, one device")
     ax.legend(fontsize=8)
     ax.grid(alpha=0.3)
     fig.tight_layout()

@@ -1,6 +1,6 @@
-"""TPU-native LDPC simulation & decoding framework.
+"""LDPC simulation & decoding framework on JAX/XLA accelerators.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 roryhighnam/iib_project_ldpc_codes (BER/FER Monte Carlo estimation of
 (dv,dc)-regular LDPC ensembles over erasure/flip/AWGN channels, with
 iterative message-passing, peeling and maximum-likelihood decoders,
@@ -8,7 +8,7 @@ validated against density-evolution and finite-length scaling theory).
 
 Design stance (not a port):
   * codes are flattened Tanner-graph edge-list structs; both decoder
-    update directions are static *gathers* (TPU-friendly), never scatters;
+    update directions are static *gathers*, never scatters;
   * the BEC erasure-BP hot loop is bit-packed, 32 codewords per int32
     lane element, batched in the lane dimension;
   * Monte Carlo trials are vmapped/batched on one chip and sharded over a

@@ -2,8 +2,8 @@
 
 The reference stores codes three ways at once: a dense boolean parity-check
 matrix, a flattened check->variable lookup and a flattened variable->check
-lookup (random_code_generator.c:21-64, parallel_simulator.py:131-146).  The
-TPU-native design keeps only the edge-list form as the primary structure and
+lookup (random_code_generator.c:21-64, parallel_simulator.py:131-146).  This
+design keeps only the edge-list form as the primary structure and
 derives everything else from it:
 
   * ``chk_to_var[m, dc]``  -- variable index at each check socket.  Edge ``e``
@@ -14,8 +14,8 @@ derives everything else from it:
 
 Both BP update directions are then pure gathers with static index arrays:
 check updates gather node values via ``chk_to_var``; variable updates gather
-edge messages via ``var_to_edge``.  No scatter is ever needed, which is the
-property that makes the decoders fast on TPU.
+edge messages via ``var_to_edge``.  No scatter is ever needed: every
+update is a batched gather that XLA fuses with its bitwise consumers.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Capability extension of the reference's regular-only sampler
 the flagship irregular extension whose analysis side lives in
 utils/theory.py (irregular_density_evolution / irregular_threshold).
 
-TPU-first padding design ("phantom nodes", no masks in the hot loop):
+Padding design ("phantom nodes", no masks in the hot loop):
 
   * Check rows are padded to ``dc_max`` with a **phantom variable** at
     index ``n``.  The packed decoder keeps its state planes as

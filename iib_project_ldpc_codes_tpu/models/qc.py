@@ -1,14 +1,13 @@
 """Quasi-cyclic (protograph-lifted) LDPC codes.
 
-Beyond-reference extension motivated by a measured limit: at huge n the
-random-ensemble packed decoder is gather-locality-bound (0.15 Ginfobit/s
-at n=1e6 x 48 words vs 4.5-5.3 at n=1e4; BFS relabeling provably cannot
-help -- random Tanner graphs are expanders, docs/VALIDATION.md round-5
-sections).  Production LDPC (5G NR, 802.11, DVB-S2) solves this
+Beyond-reference extension motivated by a structural limit: at huge n
+the random-ensemble packed decoder's gathers have no locality (random
+Tanner graphs are expanders, so no relabeling can give them any).
+Production LDPC (5G NR, 802.11, DVB-S2) solves this
 structurally: the parity-check matrix is a BASE graph whose edges are
-Z x Z circulant permutations.  On TPU that structure is a gift -- every
-per-edge "gather" becomes a ``jnp.roll`` of a contiguous [Z, W] plane,
-i.e. a stream copy at full HBM bandwidth at ANY block length.
+Z x Z circulant permutations.  That structure turns every per-edge
+"gather" into a ``jnp.roll`` of a contiguous [Z, W] plane, i.e. a
+stream copy, at ANY block length.
 
 Container: a (dvb,dcb)-regular base graph in the same edge-list form as
 :class:`..models.code.LDPCCode` (sampled by the existing configuration-

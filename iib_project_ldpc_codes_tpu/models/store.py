@@ -2,7 +2,7 @@
 
 The reference caches parity checks and lookup tables as per-code ``.npy``
 files keyed by (code_no, n, dv, dc) (parallel_simulator.py:289-335,
-tools/generate_lookups.py).  The TPU build's codes are deterministic
+tools/generate_lookups.py).  This framework's codes are deterministic
 functions of a key, so persistence is optional -- but interop matters:
 this module round-trips codes through the reference's exact file naming
 and array formats (dense bool H ``code_no_*`` + flattened int32

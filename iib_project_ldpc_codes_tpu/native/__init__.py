@@ -2,7 +2,7 @@
 
 The genuinely host-bound loops in the framework live here (the reference
 used the ``galois`` package and three ad-hoc ``.so``s via ctypes;
-SURVEY.md native-component summary).  The TPU compute path needs no
+SURVEY.md native-component summary).  The device compute path needs no
 native code -- JAX/XLA covers it -- so this library ships only:
 
   * gf2.c: bit-packed GF(2) Gauss-Jordan / rank, and the batched ML

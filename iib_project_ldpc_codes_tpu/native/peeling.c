@@ -5,7 +5,7 @@
  * check, resolve its unique unresolved variable, and record the number of
  * degree-1 checks before each peel.  The trajectory is the statistic of
  * interest (the R-process of finite-length scaling theory), so the loop is
- * inherently sequential per trial -- a poor fit for the TPU, hence native.
+ * inherently sequential per trial -- a poor fit for an accelerator, hence native.
  *
  * Unlike the reference's O(n * m) re-strip per peel, this maintains check
  * degrees and the degree-1 set incrementally: O(E) per trial total.  The

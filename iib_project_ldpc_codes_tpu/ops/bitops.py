@@ -3,8 +3,8 @@
 The bit-packed Monte Carlo layout stores one Bernoulli/binary value per bit:
 ``uint32[n, W]`` holds ``B = 32*W`` independent trials for each of ``n``
 variable nodes.  Trial ``b`` lives in bit ``b % 32`` of word ``b // 32``.
-Elementwise AND/OR/XOR on these words are VPU ops processing 32 trials per
-lane element -- the TPU-native replacement for the reference's per-trial C
+Elementwise AND/OR/XOR on these words process 32 trials per element --
+the batched replacement for the reference's per-trial C
 loops (message_passing.c:15-79).
 """
 

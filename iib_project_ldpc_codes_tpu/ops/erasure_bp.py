@@ -28,7 +28,7 @@ Two implementations:
     reference/oracle path (vmap-able).
   * :func:`bp_decode_packed` -- the production path: 32 Monte Carlo trials
     per uint32 word, batch in the trailing (lane) dimension, all message
-    algebra as bitwise VPU ops.
+    algebra as bitwise integer ops.
 """
 
 from __future__ import annotations
@@ -202,8 +202,7 @@ def _check_summaries(code: LDPCCode, val: jax.Array, known: jax.Array):
     """
     # Per-socket gathers ([m, W] each) instead of one [E, W] gather +
     # reshape: the [m, dc, W] intermediate makes kn[:, j] a strided
-    # sublane access XLA handles poorly -- the per-socket form measured
-    # 2.8x faster on v5e.
+    # access, while each per-socket plane is contiguous.
     dc = code.dc
     kns = [jnp.take(known, code.chk_to_var[:, j], axis=0)
            for j in range(dc)]
@@ -237,7 +236,7 @@ def _gather_or_by_variable(code: LDPCCode, table: jax.Array) -> jax.Array:
 
 
 def _packed_iteration(code: LDPCCode, val: jax.Array, known: jax.Array):
-    """One parallel BP round on packed state; pure bitwise VPU ops."""
+    """One parallel BP round on packed state; pure bitwise ops."""
     exactly_one, xor_known = _check_summaries(code, val, known)
     # a ready check adjacent to an *unknown* v must have v as its unique
     # unknown; for known v lanes the update is masked out below

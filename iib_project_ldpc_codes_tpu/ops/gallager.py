@@ -20,7 +20,7 @@ lanes) applies directly:
 
 Disagreement counting across the dv-1 extrinsic inputs is done bit-sliced
 (ripple-carry half-adders on uint32 planes), so the whole decoder is
-bitwise VPU work plus the two static gathers.
+bitwise integer work plus the two static gathers.
 """
 
 from __future__ import annotations
@@ -119,8 +119,8 @@ def _gallager_iteration(code: LDPCCode, channel: jax.Array, mvc: jax.Array,
     """One flooding round; ``mvc`` is uint32[dc, m, W] socket-major bits.
 
     Socket-major storage keeps every per-socket plane contiguous (the
-    check-major [m, dc, W] layout makes them strided sublane slices XLA
-    lowers poorly -- same finding as ops/erasure_bp._check_summaries).
+    check-major [m, dc, W] layout makes them strided slices -- the same
+    layout choice as ops/erasure_bp._check_summaries).
     """
     m, dc, dv = code.m, code.dc, code.dv
 

@@ -7,7 +7,7 @@ the number of degree-1 checks before each peel (``one_degree_evolution`` --
 the R-process of finite-length scaling theory).  The decoder fails when
 degree-1 checks run out with erasures remaining.
 
-TPU design: the sequential peel (which must stay sequential -- the statistic
+Device design: the sequential peel (which must stay sequential -- the statistic
 of interest *is* the one-at-a-time trajectory) is a ``lax.scan`` of masked
 steps with static length, vmapped over a batch of trials; degree counts are
 recomputed per step as a gather (no scatter).  The random degree-1 choice

@@ -18,15 +18,9 @@ check->variable messages, [dc*m, B] in the working dtype (rows j*m..j*m+m
      incoming message, read as a *contiguous slice* of the flat state) and
      the check update, written back as one concatenate.
 
-v5e measurements (n=8192, 50 iterations; see docs/VALIDATION.md): the flat
-carry is ~1.2x the earlier stacked-planes form (the per-round
-stack/reshape copy is gone -- slices of the flat array are free).
-Throughput tracks message byte width (f32 0.056 -> bf16 ~0.12 -> int8
-0.15-0.17 Ginfobit/s at the B=2048 optimum) and the int8 round is at its
-measured roof: the gather/bandwidth skeleton runs at the chip's
-gather rate (= contiguous-stream rate) and the remaining ~0.45 ms/round
-is irreducible extrinsic-min-sum VPU math (32-bit lanes: int8 ops are
-NOT faster -- measured).  Decomposition: examples/probe_soft_roof.py.
+The flat carry has no per-round stack/reshape copy: slices of the flat
+array are free.  The message dtype sets the bytes each round's gathers
+move (f32 > bf16 > int8).
 
 Working dtypes (``msg_dtype``):
   * float32 -- exact reference arithmetic;

@@ -1,14 +1,16 @@
 """Multi-host orchestration helpers.
 
 The reference scales across hosts as independent HPC array jobs reduced
-offline (SURVEY.md section 2).  The TPU-native equivalent is ONE
-``jax.distributed`` job over ICI/DCN: every host runs the same program,
-the global mesh spans all processes' devices, Monte Carlo counters psum
-across the whole mesh inside the chunk kernel, and only process 0 writes
-results -- replacing tools/combine_data.py with a collective.
+offline (SURVEY.md section 2).  Here it is ONE ``jax.distributed`` job:
+every host runs the same program in one process that owns all of that
+host's cards (a JAX process reserves most of a card's memory, so a card
+takes no second process), the global mesh spans all processes' devices,
+Monte Carlo counters psum across the whole mesh inside the chunk kernel
+(NCCL within and between hosts), and only process 0 writes results --
+replacing tools/combine_data.py with a collective.
 
-Single-process runs (including the 1-chip CI/bench environment) work
-unchanged: ``initialize()`` is a no-op when no coordinator is configured.
+Single-process runs (one card, or all cards of one host) work unchanged:
+``initialize()`` is a no-op when no coordinator is configured.
 """
 
 from __future__ import annotations

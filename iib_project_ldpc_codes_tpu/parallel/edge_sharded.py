@@ -51,9 +51,9 @@ def _local_round(chk_local: jax.Array, var_to_chk: jax.Array,
     ops.erasure_bp._check_summaries).  Variable side: every variable
     gathers the summary from its dv checks, with checks outside this
     device's shard masked to zero -- all gathers, no scatter (a
-    3E-update scatter-OR under a 200-round while_loop is exactly the op
-    shape that falls off the TPU fast path; the OR-all-reduce then
-    merges the per-shard candidates).
+    3E-update scatter-OR under a 200-round while_loop would serialise
+    on colliding updates; the OR-all-reduce then merges the per-shard
+    candidates).
     """
     kns = [jnp.take(known, chk_local[:, j], axis=0) for j in range(dc)]
     full = jnp.uint32(0xFFFFFFFF)

@@ -2,8 +2,8 @@
 
 The reference's parallelism is "HPC array job" style: N independent OS
 processes with hand-assigned seeds, reduced offline by CSV merging
-(SURVEY.md section 2).  The TPU-native equivalent is a single
-``jax.sharding.Mesh`` over all chips with the Monte Carlo batch sharded
+(SURVEY.md section 2).  The equivalent here is a single
+``jax.sharding.Mesh`` over all cards with the Monte Carlo batch sharded
 along one axis ("batch") and integer error counters reduced with ``psum``
 -- the whole of tools/combine_data.py becomes one collective.
 """

@@ -18,8 +18,15 @@ Usage (run the same command on every host, varying only --process-id):
 
 ``--platform=cpu --cpu-devices=K`` pins a K-virtual-device CPU backend per
 process (used by the 2-process integration test; also handy for dry runs
-without TPUs).  On TPU pods, omit both -- each process picks up its local
-chips and the global mesh spans the pod.
+without GPUs).  On GPU hosts, omit both and run ONE process per host:
+that process owns all of the host's local cards and the global mesh spans
+every host's cards.  Never start a second process on a host whose cards
+are taken: a JAX process reserves most of a card's memory when it starts,
+so a second one on the same card fails for want of memory.
+
+``jax.distributed`` is told of the cluster only through these flags (or
+the JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+variables); nothing is discovered automatically.
 
 Prints one JSON line per process with the psum'd counters so launchers can
 scrape any process's output (they all agree).
@@ -49,6 +56,9 @@ def main(argv=None) -> int:
 
     import jax
 
+    from ..utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
     if flags.get("platform") == "cpu":
         try:
             jax.config.update("jax_num_cpu_devices",

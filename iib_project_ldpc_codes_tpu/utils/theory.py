@@ -934,7 +934,7 @@ def irregular_modified_density_evolution(erasure_prob: float, lam, rho,
 # lambda coefficients (Luby et al. / Shokrollahi's classic observation),
 # so "the best variable-degree distribution" is a HOST-SIDE LP -- design
 # happens in milliseconds, then the sampled ensemble runs through the
-# same TPU Monte Carlo pipeline as any other (lam, rho).
+# same device Monte Carlo pipeline as any other (lam, rho).
 # ---------------------------------------------------------------------------
 
 def optimize_lambda(rho, dv_max: int, epsilon: float,

@@ -545,8 +545,8 @@ def test_fit_waterfall_alpha_drops_saturated_points():
 
 def test_irregular_alpha_fit_is_n_stable_on_hardware_data():
     """The fitted irregular scaling slope must be n-stable: per-n refits
-    of the measured waterfalls (docs/data/irregular_scaling.json, one
-    v5e chip) stay within 15% of the joint fit.  Skips when the measured
+    of the measured waterfalls (docs/data/irregular_scaling.json) stay
+    within 15% of the joint fit.  Skips when the measured
     data is not present (fresh clone before the hardware run)."""
     import json
     import os
